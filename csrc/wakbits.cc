@@ -1,6 +1,6 @@
 // Native bitstream runtime for the pactpu perceptual audio codec.
 //
-// The TPU engine computes everything batched on device (MDCT, psych model,
+// The device engine computes everything batched on device (MDCT, psych model,
 // allocation, quantization, Huffman table selection); what remains is the
 // inherently bit-serial host work the reference did per block in Python
 // (reference codec/bitpack.py:36-170 MSB-first packing, codec/Huffman.py:

@@ -1,4 +1,4 @@
-"""Exact sequential-reservoir rate control on the TPU path.
+"""Exact sequential-reservoir rate control on the device path.
 
 The reference's bit reservoir couples block t to t+1: each block withdraws
 1% of the deposit before allocating, channel 0's allocation leftover funds
@@ -19,11 +19,11 @@ possible allocation — is *precomputed in parallel* as a dense cost table
         Huffman code length (or escape length + alloc) of the mantissa
         that band would emit at that allocation
 
-(16 quantize+gather passes over the whole batch, pure MXU/VPU work), and
-the sequential part collapses to a tiny `lax.scan` over blocks whose body
-is one water-filling per channel plus a [bands, 17->1, tables] gather —
-no data-dependent work, no host round trips; the scan carry (deposit,
-extraBits) is two int32s chained across chunks.
+(16 quantize+gather passes over the whole batch, pure matmul/elementwise
+work), and the sequential part collapses to a tiny `lax.scan` over blocks
+whose body is one water-filling per channel plus a [bands, 17->1, tables]
+gather — no data-dependent work, no host round trips; the scan carry
+(deposit, extraBits) is two int32s chained across chunks.
 
 Shipped as `Engine(rate_mode="exact")`.  With precision="f64" (and jax
 x64 enabled) the engine byte-reproduces the reference golden bitstreams
@@ -60,7 +60,7 @@ def cost_table_body(cfg: CodecConfig, precision: str = "f32"):
     max_mant = min(1 << cfg.n_mant_size_bits, cfg.max_mant_bits)
     dt = _dtype(precision)
     half = cfg.n_mdct_lines
-    # one-hot line->band matrix: band sums become one MXU contraction
+    # one-hot line->band matrix: band sums become one contraction
     onehot = np.zeros((half, layout.n_bands), dt)
     onehot[np.arange(half), seg] = 1.0
 
@@ -99,8 +99,9 @@ def cost_table_body(cfg: CodecConfig, precision: str = "f32"):
             lens = jnp.stack(lens, axis=-1).astype(dt)  # [B, 2, half, T]
             # exact in floating point: lengths are small ints, band sums
             # < 2^24
-            return jnp.einsum("bclt,lk->bckt", lens,
-                              jnp.asarray(onehot)).astype(jnp.int32)
+            return jnp.einsum("bclt,lk->bckt", lens, jnp.asarray(onehot),
+                              precision=jax.lax.Precision.HIGHEST
+                              ).astype(jnp.int32)
 
         allocs = jnp.arange(1, max_mant + 1, dtype=jnp.int32)
         by_alloc = jax.lax.map(per_alloc, allocs)     # [16, B, 2, bands, T]
@@ -136,10 +137,9 @@ def extras_scan_body(cfg: CodecConfig, precision: str = "f32"):
         # identical int(budget + extra) truncation to finalize_body's
         total = (jnp.asarray(budget, dt) + extra.astype(dt)
                  ).astype(jnp.int32)
-        bits, left = ba_ops.water_fill(
+        bits, left = ba_ops.water_fill_xla(
             total[None], max_mant, nl, smr_c[None], lrms_b[None],
-            cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db,
-            use_pallas=False)
+            cfg.ms_stop_threshold_db, cfg.lr_stop_threshold_db)
         bits, left = bits[0], left[0]
         band_cost = jnp.take_along_axis(
             cost_c, bits[:, None, None], axis=1)[:, 0]   # [bands, T]

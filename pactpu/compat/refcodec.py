@@ -4,10 +4,10 @@ A from-formulas Python 3 / numpy re-statement of the exact numerical
 semantics of the reference encoder/decoder (reference codec/*.py, Python 2),
 **including its observed quirks**, so that:
 
-- unit tests can golden-check the TPU kernels against true reference math,
+- unit tests can golden-check the device kernels against true reference math,
 - the `.wak` bitstreams in /root/reference/coded/withHuffman can be decoded
   and (ideally) byte-reproduced,
-- SNR parity of the fast TPU path can be measured against reference output.
+- SNR parity of the fast device path can be measured against reference output.
 
 Quirks deliberately reproduced (see SURVEY.md §8 plus two found during this
 port):

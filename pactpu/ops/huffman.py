@@ -1,4 +1,4 @@
-"""Static-table Huffman coding as TPU gathers.
+"""Static-table Huffman coding as device gathers.
 
 The reference encoder walks dicts: for each channel-block it encodes the
 unsigned mantissas with *all ten* genre tables and keeps the cheapest
@@ -6,7 +6,7 @@ unsigned mantissas with *all ten* genre tables and keeps the cheapest
 followed by the raw bitAlloc-bit mantissa for symbols absent from a table
 (Huffman.py:294-298).
 
-TPU design: the ten tables live as dense `[10, 32768]` (length, code)
+Design: the ten tables live as dense `[10, 32768]` (length, code)
 arrays (ported from codec/huffmanTables.pickle by
 tools/port_huffman_tables.py).  Per-line code lengths for all ten tables are
 one gather; the best-table choice is an argmin over the ten per-table length
@@ -77,8 +77,8 @@ def encode_select(symbols: jax.Array, line_bits: jax.Array,
 
     # pack every table's 5-bit code length into two i32 words per symbol:
     # the per-line length lookup for ALL tables is then two [R, L] gathers
-    # instead of a [T, R, L] one — TPU gathers are the cost here, the
-    # unpacking shifts are free VPU work
+    # instead of a [T, R, L] one — the gathers are the cost here, the
+    # unpacking shifts are cheap elementwise work
     shifts_lo = 5 * jnp.arange(n_lo, dtype=jnp.int32)
     packed_lo = jnp.sum(
         jnp.left_shift(tab_lens[:n_lo], shifts_lo[:, None]), axis=0)
@@ -86,8 +86,7 @@ def encode_select(symbols: jax.Array, line_bits: jax.Array,
     packed_hi = jnp.sum(
         jnp.left_shift(tab_lens[n_lo:], shifts_hi[:, None]), axis=0)
 
-    # ONE gather per line: TPU gather cost scales with the number of
-    # gathered rows, not bytes, so the per-symbol record carries both
+    # ONE gather per line: the per-symbol record carries both
     # packed-length words AND every table's codeword in one [S, 2+T] row
     combined = jnp.concatenate(
         [packed_lo[:, None], packed_hi[:, None], tab_codes.T], axis=1)
@@ -117,7 +116,7 @@ def encode_select(symbols: jax.Array, line_bits: jax.Array,
                                esc_len[best][:, None] + line_bits), 0)
     r = jnp.arange(sym.shape[0])
     native = sym * 0
-    for t in range(n_tab):                    # 10-way select, fused VPU work
+    for t in range(n_tab):                    # 10-way select, elementwise
         native = jnp.where(b_col == t, rec[..., 2 + t], native)
     escape = jnp.left_shift(esc_code[best][:, None], line_bits) + sym
     codes = jnp.where(in_best, native, escape)

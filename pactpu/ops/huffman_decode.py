@@ -8,7 +8,7 @@ channel-block because every field's bit offset depends on the decoded
 lengths before it, but perfectly parallel *across* channel-blocks (the
 parallelism csrc/wakbits.cc already exploits on the host).
 
-TPU design: all R channel-block rows of a chunk walk their bitstreams in
+Design: all R channel-block rows of a chunk walk their bitstreams in
 lockstep.  The serial dimension is a `lax.scan` over the lines of each
 band (trip counts are static: the band layout), and every step is
 vectorized over the R rows:

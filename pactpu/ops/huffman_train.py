@@ -10,7 +10,7 @@ symbol*, not its frequency), builds the tree by repeatedly merging the two
 lowest-frequency nodes from a stable-sorted deque (Huffman.py:218-231), and
 assigns '0' to the first-popped (lower-frequency) child (Huffman.py:234-250).
 
-TPU-native split:
+Device/host split:
 
 - **Statistics are a device computation**: `symbol_histogram` bincounts the
   unsigned mantissa symbols of a whole block batch in one scatter-add, and

@@ -1,8 +1,8 @@
-"""Batched MDCT / IMDCT designed for the TPU MXU.
+"""Batched MDCT / IMDCT as one dense matmul.
 
 The reference computes a per-block FFT-based MDCT (pre-twiddle, FFT,
 post-twiddle — reference codec/mdct.py:49-88, Bosi & Goldberg pp. 141-143)
-one 2048-sample block at a time.  On TPU the transform of a *batch* of
+one 2048-sample block at a time.  Here the transform of a *batch* of
 blocks is a single dense matmul against a precomputed cosine basis:
 
     forward:  X[b, k] = (2/N) * sum_n x[b, n] * C[n, k]
@@ -10,11 +10,10 @@ blocks is a single dense matmul against a precomputed cosine basis:
 
 with C[n, k] = cos((2*pi/N) * (n + n0) * (k + 1/2)), n0 = (N/2 + 1)/2.
 
-A `[B, 2048] @ [2048, 1024]` f32 matmul maps straight onto the 128x128
-systolic array and amortizes perfectly over the block-batch axis — the MDCT
-of a whole audio file is one MXU call.  (An FFT would use fewer FLOPs but
-fragments into many small kernels; on TPU the dense form is faster for the
-batch sizes a file produces, and the basis is only 8 MB.)
+A `[B, 2048] @ [2048, 1024]` f32 matmul amortizes perfectly over the
+block-batch axis — the MDCT of a whole audio chunk is one matmul.  (An FFT
+would use fewer FLOPs but fragments into several kernels; the basis is
+only 8 MB.)
 
 `MDCTslow` parity: the O(N^2) reference form (codec/mdct.py:10-43) *is* this
 matmul — the fast/slow split of the reference collapses into one op here.

@@ -1,512 +1,146 @@
-"""Pallas TPU kernels for the codec's hot compute path.
+"""Pallas kernel for the GPU (Triton route): the greedy water-fill.
 
-The single largest device computation in the encoder is the psychoacoustic
-masker spreading (pactpu.ops.psycho.masked_threshold): for every block
-variant (6 per stereo block) it evaluates a [K maskers x L lines] spreading
-expression and reduces over maskers — the TPU re-statement of the
-reference's per-peak Python loop (reference codec/psychoac.py:215-251,
-409-456).
+The reference allocator (reference codec/bitalloc.py:129-184) is a
+data-dependent loop of ~100-425 grants per (block, channel) row.  XLA runs
+it (pactpu.ops.bitalloc.water_fill) as a `while_loop` over the whole
+[R, bands] batch, so every trip launches several small kernels and reads
+its loop condition back to the host.  This kernel keeps the loop inside
+one program per tile of rows: the state (bits, budget, live-band mask)
+stays in registers, the 25 bands are padded to 32 lanes (one warp), and
+each tile stops as soon as its own rows have retired every band.
 
-The XLA formulation materializes [chunk, K, L] f32 intermediates between
-fusions; this Pallas kernel streams the masker axis through VMEM in
-sublane-tiles and accumulates into a [1, L] VMEM tile per program, so the
-line-axis tile is read once and HBM traffic drops to the O(K + L) inputs
-and output.  One grid program per block row; all arithmetic is VPU
-elementwise work in f32.
-
-The kernel is numerically equivalent to the XLA path up to float
-summation order (tested in interpret mode on CPU,
-tests/test_pallas_ops.py); enable/disable with PACTPU_PALLAS=1/0
-(default: on when running on TPU).
+The arithmetic is the XLA loop's, carried in f32 on small integers, so
+the two agree bit for bit (tests/test_pallas_ops.py, interpret mode).
+`pactpu.ops.bitalloc.water_fill` selects this kernel on the GPU backend.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-_LOG2_10_OVER_10 = float(np.log2(10.0) / 10.0)
-_K_TILE = 128  # masker chunk (lane-aligned)
-_R_TILE = 8  # block rows per grid program (TPU sublane granule)
-
-
-def enabled() -> bool:
-    """Use Pallas kernels? Default: only on TPU backends."""
-    flag = os.environ.get("PACTPU_PALLAS")
-    if flag is not None:
-        return flag not in ("0", "", "false")
-    try:
-        return jax.default_backend().startswith("tpu")
-    except Exception:
-        return False
+_LANES = 32          # bands padded to one warp's width
+_MIN_PROGRAMS = 132  # one program per SM of an H100 at least
+_MAX_TILE = 16       # rows per program
 
 
-def _spread_kernel(mspl_ref, lev_ref, bark_ref, valid_ref, drop_ref,
-                   zvec_ref, out_ref):
-    """R_TILE block rows: sum spreading contributions of K maskers over L
-    lines per row.
-
-    mspl/lev/bark/valid: f32[R_TILE, K] masker params (valid is 0/1);
-    drop: f32[R_TILE, 1] tonal drop per row; zvec: f32[1, L] line barks.
-    out: f32[R_TILE, L] accumulated masking intensity (relative to the
-    96 dB reference, i.e. sum over maskers of 10^((spread SPL - 96)/10)).
-    """
-    k = mspl_ref.shape[1]
-    zvec = zvec_ref[0, :]                       # [L]
-    out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    # static 128-aligned masker chunks (Mosaic requires lane slices at
-    # provable multiples of 128); the [chunk] -> [chunk, 1] reshape is a
-    # lane->sublane relayout Mosaic handles for static shapes
-    for r in range(_R_TILE):                    # static unroll over rows
-        for s in range(0, k, _K_TILE):
-            mspl = mspl_ref[r, s:s + _K_TILE][:, None]      # [kt, 1]
-            lev = lev_ref[r, s:s + _K_TILE][:, None]
-            bark = bark_ref[r, s:s + _K_TILE][:, None]
-            valid = valid_ref[r, s:s + _K_TILE][:, None]
-            dz = zvec[None, :] - bark                       # [kt, L]
-            adz = jnp.abs(dz)
-            onslope = jnp.where(adz > 0.5, adz - 0.5, 0.0)
-            s_db = (mspl - drop_ref[r, 0] - 27.0 * onslope
-                    + jnp.where(dz >= 0.0, lev * onslope, 0.0))
-            contrib = jnp.exp2(_LOG2_10_OVER_10 * (s_db - 96.0)) * valid
-            out_ref[r, :] += jnp.sum(contrib, axis=0)
-
-
-_L_TILE = 256  # line tile of the upslope spread kernel
-
-
-def _make_spread_up_kernel(bark_np: np.ndarray, zvec_np: np.ndarray):
-    """Build the upslope spreading kernel for static bark grids.
-
-    Only the tonal-level-dependent upward slope runs here (the plateau and
-    fixed downslope reduce to an MXU matmul in pactpu.ops.psycho): for
-    dz = z_line - z_masker > 0.5, contribution = I'_masker *
-    10^((0.367*max(SPL-40,0) - 27) * (dz - 0.5) / 10).
-
-    Both bark grids are compile-time constants and ascending, so every
-    (masker-tile, line-tile) pair whose lines all sit at dz <= 0.5 is
-    simply not emitted — about half of all pairs (the strictly-lower
-    triangle plus the plateau band).
-    """
-    k = bark_np.shape[0]
-    l = zvec_np.shape[0]
-    # per masker tile: the (static, 128-aligned) first line index that can
-    # sit on the tile's upslope — lines below bark[s] + 0.5 never do, and
-    # both grids are ascending, so the qualifying range is one wide
-    # contiguous slice per tile (one big vector op, not many small tiles)
-    plan = []
-    for s in range(0, k, _K_TILE):
-        l0 = int(np.searchsorted(zvec_np, bark_np[s] + 0.5, side="right"))
-        l0 = (l0 // 128) * 128
-        if l0 < l:
-            plan.append((s, l0))
-    plan = tuple(plan)
-
-    def kernel(iprime_ref, mspl_ref, bark_ref, zvec_ref, out_ref):
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-        for r in range(_R_TILE):                # static unroll over rows
-            for s, l0 in plan:
-                ip = iprime_ref[r, s:s + _K_TILE][:, None]      # [kt, 1]
-                mspl = mspl_ref[r, s:s + _K_TILE][:, None]
-                bark = bark_ref[0, s:s + _K_TILE][:, None]
-                zv = zvec_ref[0, l0:l][None, :]
-                lev = 0.367 * jnp.maximum(mspl - 40.0, 0.0)
-                dz = zv - bark                                  # [kt, lw]
-                up = jnp.where(dz > 0.5, dz - 0.5, 0.0)
-                contrib = ip * jnp.exp2(_LOG2_10_OVER_10
-                                        * (lev - 27.0) * up)
-                contrib = jnp.where(dz > 0.5, contrib, 0.0)
-                out_ref[r, l0:l] += jnp.sum(contrib, axis=0)
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("bark_key", "zvec_key", "interpret"))
-def _spread_up_call(iprime, mspl, bark_key, zvec_key, interpret):
-    bark_np = np.frombuffer(bark_key, np.float32)
-    zvec_np = np.frombuffer(zvec_key, np.float32)
-    b, k = iprime.shape
-    l = zvec_np.shape[0]
-    assert k % _K_TILE == 0 and l % _L_TILE == 0, (k, l)
-    pad = (-b) % _R_TILE
-    bp = b + pad
-    f32 = lambda a: jnp.pad(a.astype(jnp.float32), ((0, pad), (0, 0)))  # noqa: E731
-
-    row = pl.BlockSpec((_R_TILE, k), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _make_spread_up_kernel(bark_np, zvec_np),
-        grid=(bp // _R_TILE,),
-        in_specs=[row, row,
-                  pl.BlockSpec((1, k), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, l), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((_R_TILE, l), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((bp, l), jnp.float32),
-        interpret=interpret,
-    )(f32(iprime), f32(mspl),
-      jnp.asarray(bark_np, jnp.float32)[None, :],
-      jnp.asarray(zvec_np, jnp.float32)[None, :])
-    return out[:b]
-
-
-def spread_maskers_up(iprime: jax.Array, mspl: jax.Array,
-                      bark_np: np.ndarray, zvec_np: np.ndarray,
-                      interpret: bool = False) -> jax.Array:
-    """Upslope masking-intensity accumulation over all bins.
-
-    iprime: f32[B, K] peak-masked masker intensities
-    (10^((SPL - drop - 96)/10), zero for non-peaks); mspl: f32[B, K] raw
-    masker SPLs (for the tonal level term); bark_np/zvec_np: STATIC numpy
-    bark grids of the masker bins / MDCT lines.  Returns f32[B, L]."""
-    bark_key = np.ascontiguousarray(bark_np, np.float32).tobytes()
-    zvec_key = np.ascontiguousarray(zvec_np, np.float32).tobytes()
-    return _spread_up_call(iprime, mspl, bark_key, zvec_key, interpret)
-
-
-def _pack_words_kernel(part0_ref, part1_ref, w0_ref, out_ref):
-    """Accumulate per-item word contributions into output words.
-
-    The XLA scatter-add formulation of payload packing serializes: ~30
-    items land in every 32-bit word.  Here each grid program holds the
-    [R_TILE, n_words] accumulator in registers/VMEM and sweeps the item
-    axis with compare-masked reductions — pure VPU work, no scatter.
-
-    part0/part1: i32[R_TILE, M] word contributions (bit patterns, already
-    guarded to 0 for empty items); w0: i32[R_TILE, M] destination word of
-    part0 (part1 goes to w0+1; M-padded items carry w0 = -2 so neither
-    lands).  out: i32[R_TILE, n_words] (bitwise-disjoint sums, so int32
-    wraparound add == or).
-    """
-    m = part0_ref.shape[1]
-    n_words = out_ref.shape[1]
-    wids = jax.lax.broadcasted_iota(jnp.int32, (_K_TILE, n_words), 1)
-    for r in range(_R_TILE):                    # static unroll over rows
-        acc = jnp.zeros((n_words,), jnp.int32)
-        for s in range(0, m, _K_TILE):
-            p0 = part0_ref[r, s:s + _K_TILE][:, None]       # [kt, 1]
-            p1 = part1_ref[r, s:s + _K_TILE][:, None]
-            w0 = w0_ref[r, s:s + _K_TILE][:, None]
-            contrib = (jnp.where(w0 == wids, p0, 0)
-                       + jnp.where(w0 + 1 == wids, p1, 0))
-            acc = acc + jnp.sum(contrib, axis=0)
-        out_ref[r, :] = acc
-
-
-@partial(jax.jit, static_argnames=("n_words", "interpret"))
-def pack_words(part0: jax.Array, part1: jax.Array, w0: jax.Array,
-               n_words: int, interpret: bool = False) -> jax.Array:
-    """Sum item contributions into u32 payload words (scatter-free).
-
-    part0/part1: u32/i32[R, M]; w0: i32[R, M] destination word indices.
-    Returns u32[R, n_words] where words[r, w] = or of part0 with w0 == w
-    and part1 with w0 + 1 == w."""
-    r, m = part0.shape
-    pad_m = (-m) % _K_TILE
-    pad_r = (-r) % _R_TILE
-    rp = r + pad_r
-
-    def prep(a, fill=0):
-        if a.dtype == jnp.uint32:
-            a = jax.lax.bitcast_convert_type(a, jnp.int32)
-        return jnp.pad(a.astype(jnp.int32), ((0, pad_r), (0, pad_m)),
-                       constant_values=fill)
-
-    row = lambda w: pl.BlockSpec((_R_TILE, w), lambda i: (i, 0),  # noqa: E731
-                                 memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _pack_words_kernel,
-        grid=(rp // _R_TILE,),
-        in_specs=[row(m + pad_m)] * 3,
-        out_specs=row(n_words),
-        out_shape=jax.ShapeDtypeStruct((rp, n_words), jnp.int32),
-        interpret=interpret,
-    )(prep(part0), prep(part1), prep(w0, fill=-2))
-    return jax.lax.bitcast_convert_type(out[:r], jnp.uint32)
-
-
-_W_TILE = 128  # words per grid step (lane-aligned, Mosaic minimum)
-
-
-def _extract_codes_kernel(words_ref, off_ref, width_ref, out_ref):
-    """Slice fixed-width bit fields out of MSB-first u32 word rows.
-
-    The decode-side inverse of `pack_words`: for each line, read `width`
-    bits at bit offset `off` of the row's word stream (lane gathers
-    serialize on TPU — a pure-XLA gather formulation measured 17 ms vs
-    <1 ms for this kernel on a 512-block chunk — so word selection is
-    compare-masked accumulation).  Two structural rules keep it fast:
-
-    - every intermediate is a (rows, K_TILE) = (32, 128) tile, the VPU's
-      native (sublane, lane) orientation — a [K_TILE, W] formulation (128
-      sublanes) ran 2x slower;
-    - the word axis is the LAST GRID DIMENSION (_W_TILE words per step,
-      accumulating into the revisited output block) rather than a fully
-      unrolled in-kernel sweep — unrolling all W=256 words x 8 line
-      tiles in one program blew the instruction stream up (4 ms vs
-      sub-ms); the per-step sweep is a constant 128 words, so program
-      size no longer grows with the row width.
-
-    Because a field's two source words can land in different word tiles,
-    the accumulator holds the pre-shift 32-bit window (bit-disjoint
-    contributions, add == or); the final grid step shifts it down by
-    32 - width.
-
-    words: i32[rows, _W_TILE] block; off/width: i32[rows, L];
-    out: i32[rows, L] (window accumulator, finalized on the last step).
-    """
-    l = off_ref.shape[1]
-    srl = jax.lax.shift_right_logical
-    j = pl.program_id(1)
-    nwt = pl.num_programs(1)
-    base = j * _W_TILE
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    for s in range(0, l, _K_TILE):
-        off = off_ref[:, s:s + _K_TILE]                     # [rows, kt]
-        w0 = off >> 5
-        sh = off & 31
-        acc = jnp.zeros_like(off)
-        for wi in range(_W_TILE):               # static sweep over words
-            wcol = words_ref[:, wi][:, None]                # [rows, 1]
-            acc = acc | jnp.where(w0 == base + wi,
-                                  jnp.left_shift(wcol, sh), 0)
-            acc = acc | jnp.where(
-                (w0 == base + wi - 1) & (sh > 0),
-                srl(wcol, jnp.minimum(32 - sh, 31)), 0)
-        out_ref[:, s:s + _K_TILE] |= acc
-
-    @pl.when(j == nwt - 1)
-    def _finalize():
-        for s in range(0, l, _K_TILE):
-            width = width_ref[:, s:s + _K_TILE]
-            win = out_ref[:, s:s + _K_TILE]
-            out_ref[:, s:s + _K_TILE] = jnp.where(
-                width > 0, srl(win, jnp.minimum(32 - width, 31)), 0)
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def extract_codes(words: jax.Array, off: jax.Array, width: jax.Array,
-                  interpret: bool = False) -> jax.Array:
-    """Extract per-line fixed-width codes from packed u32 word rows.
-
-    words: u32/i32[R, W] MSB-first bit rows; off/width: i32[R, L] bit
-    offset and width per line (width 0 -> 0).  Returns i32[R, L]."""
-    r, w = words.shape
-    l = off.shape[1]
-    assert l % _K_TILE == 0, l
-    xr_tile = 32           # wide row tile: the sweep body is cheap
-    pad_r = (-r) % xr_tile
-    pad_w = (-w) % _W_TILE
-    rp = r + pad_r
-    if words.dtype == jnp.uint32:
-        words = jax.lax.bitcast_convert_type(words, jnp.int32)
-
-    def pad(a, pw=0):
-        return jnp.pad(a.astype(jnp.int32), ((0, pad_r), (0, pw)))
-
-    out = pl.pallas_call(
-        _extract_codes_kernel,
-        grid=(rp // xr_tile, (w + pad_w) // _W_TILE),
-        in_specs=[
-            pl.BlockSpec((xr_tile, _W_TILE), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((xr_tile, l), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((xr_tile, l), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((xr_tile, l), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((rp, l), jnp.int32),
-        interpret=interpret,
-    )(pad(words, pad_w), pad(off), pad(width))
-    return out[:r]
+def row_tile(rows: int) -> int:
+    """Rows per program: the largest power of two (<= _MAX_TILE) that
+    still leaves at least _MIN_PROGRAMS programs, and 1 for small
+    batches."""
+    tile = 1
+    while tile < _MAX_TILE and -(-rows // (2 * tile)) >= _MIN_PROGRAMS:
+        tile *= 2
+    return tile
 
 
 def _water_fill_kernel(smr_ref, lrms_ref, nlines_ref, total_ref,
                        bits_ref, left_ref, *, n_bands, max_mant_bits,
                        ms_stop, lr_stop, max_iters):
-    """Greedy water-filling for R_TILE rows entirely on-chip.
+    """Greedy water-filling for one tile of rows.
 
-    The reference allocator's data-dependent while loop
-    (reference codec/bitalloc.py:129-184) runs here as a fixed-trip loop
-    whose state (bits, budget, valid mask) lives in vector registers — no
-    per-iteration kernel dispatch, which is what makes the XLA fori_loop
-    formulation latency-bound (each of its ~425 iterations costs a kernel
-    round trip on tiny [R, 25] arrays).
-
-    smr/lrms: f32[R_TILE, NB] (NB = bands padded to the 32-lane granule,
-    lrms is 0/1); nlines: f32[1, NB] (0 in padded lanes);
-    total: f32[R_TILE, 1] budget per row.
-    Outputs: bits f32[R_TILE, NB], left f32[R_TILE, 1] (unspent budget
-    after the 1-bit refund).
+    smr/lrms: f32[tile, 32] (padded lanes: smr -1e30, lrms 0);
+    nlines: f32[1, 32] (0 in padded lanes); total: f32[tile, 1] budget.
+    Outputs: bits f32[tile, 32], left f32[tile, 1] (unspent budget after
+    the 1-bit refund).
     """
-    smr = smr_ref[:, :]
-    lrms = lrms_ref[:, :]
-    nlines = nlines_ref[0, :][None, :]
-    r_tile = smr.shape[0]
-    nb_pad = smr.shape[1]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (r_tile, nb_pad), 1)
-    valid0 = (lane < n_bands).astype(jnp.float32)
+    smr = smr_ref[...]
+    lrms = lrms_ref[...]
+    nlines = nlines_ref[...]
+    lane = jax.lax.broadcasted_iota(jnp.int32, smr.shape, 1)
+    valid0 = jnp.where(lane < n_bands, 1.0, 0.0).astype(jnp.float32)
 
-    def body(_, state):
-        bits, total, valid = state
+    def body(state):
+        i, bits, total, valid = state
         resid = smr - 6.0 * bits
         masked = jnp.where(valid > 0.0, resid, -1e30)
-        cand = jnp.argmax(masked, axis=1).astype(jnp.int32)[:, None]
-        onehot = (lane == cand).astype(jnp.float32)
-        active = jnp.max(valid, axis=1, keepdims=True)  # any valid band
+        # first-index argmax, the np.argmax tie-break of the reference
+        cand = jax.lax.argmax(masked, 1, jnp.int32)[:, None]
+        onehot = jnp.where(lane == cand, 1.0, 0.0).astype(jnp.float32)
+        active = jnp.max(valid, axis=1, keepdims=True)
 
         global_resid = jnp.max(smr - (bits - 1.0) * 6.0, axis=1,
                                keepdims=True)
         cand_ms = jnp.sum(onehot * lrms, axis=1, keepdims=True)
         stop_thr = jnp.where(cand_ms > 0.0, ms_stop, lr_stop)
-        kill_stop = (global_resid < stop_thr).astype(jnp.float32)
+        kill_stop = jnp.where(global_resid < stop_thr, 1.0, 0.0)
 
         cost = jnp.sum(onehot * nlines, axis=1, keepdims=True)
-        can_pay = (total - cost >= 0.0).astype(jnp.float32)
+        can_pay = jnp.where(total - cost >= 0.0, 1.0, 0.0)
         grant = active * can_pay
         bits = bits + grant * onehot
         total = total - grant * cost
         cand_bits = jnp.sum(onehot * bits, axis=1, keepdims=True)
-        hit_cap = (cand_bits >= max_mant_bits).astype(jnp.float32)
+        hit_cap = jnp.where(cand_bits >= max_mant_bits, 1.0, 0.0)
         kill = active * jnp.minimum(
             kill_stop + (1.0 - can_pay) + grant * hit_cap, 1.0)
         valid = valid * (1.0 - onehot * kill)
-        return bits, total, valid
+        return i + 1, bits, total, valid
 
-    bits0 = jnp.zeros((r_tile, nb_pad), jnp.float32)
-
-    # early-exit while: once every row in the tile has retired its last
-    # band the body is a provable no-op (grant = kill = 0), so skipping
-    # the remaining trips is exact.  Real corpus rows finish in ~100-150
-    # grants of the 425-trip worst-case bound, so the dead tail was
-    # ~2/3 of the kernel's runtime.
+    # once every row of the tile has retired its last band the body is a
+    # no-op (grant = kill = 0), so stopping there is exact
     def cond(state):
         i, _, _, valid = state
         return jnp.logical_and(i < max_iters, jnp.max(valid) > 0.0)
 
-    def wbody(state):
-        i, bits, total, valid = state
-        bits, total, valid = body(i, (bits, total, valid))
-        return i + 1, bits, total, valid
-
+    bits0 = jnp.zeros(smr.shape, jnp.float32)
     _, bits, total, _ = jax.lax.while_loop(
-        cond, wbody, (jnp.int32(0), bits0, total_ref[:, :], valid0))
+        cond, body, (jnp.int32(0), bits0, total_ref[...], valid0))
 
-    ones = (bits == 1.0).astype(jnp.float32)
+    ones = jnp.where(bits == 1.0, 1.0, 0.0).astype(jnp.float32)
     refund = jnp.sum(ones * nlines, axis=1, keepdims=True)
-    bits_ref[:, :] = bits * (1.0 - ones)
-    left_ref[:, :] = total + refund
+    bits_ref[...] = bits * (1.0 - ones)
+    left_ref[...] = total + refund
 
 
 @partial(jax.jit, static_argnames=("max_mant_bits", "ms_stop", "lr_stop",
-                                   "n_bands_static", "interpret"))
-def _water_fill_call(total_bits, smr, lrms, nlines_row, max_mant_bits,
-                     ms_stop, lr_stop, n_bands_static, interpret):
-    r, nb = smr.shape
-    nb_pad = max(32, -(-nb // 128) * 128) if nb > 32 else 32
-    # big row tiles: every loop iteration is then [rows, 32] vector work
-    # (full vregs) and the sequential grid stays short — the whole batch
-    # usually runs as ONE program whose loop state lives in VMEM/registers
-    rows = min(-(-r // 8) * 8, 512)
-    pad_r = (-r) % rows
-    rp = r + pad_r
-
-    def pad2(a, value=0.0):
-        return jnp.pad(a.astype(jnp.float32),
-                       ((0, pad_r), (0, nb_pad - nb)),
-                       constant_values=value)
-
-    # padded lanes must not win the global stop-rule max -> -1e30
-    smr_p = pad2(smr, value=-1e30)
-    lrms_p = pad2(lrms.astype(jnp.float32))
-    nlines_p = jnp.pad(nlines_row.astype(jnp.float32)[None, :],
-                       ((0, 0), (0, nb_pad - nb)))
-    total_p = jnp.pad(total_bits.astype(jnp.float32)[:, None],
-                      ((0, pad_r), (0, 0)))
-
-    max_iters = n_bands_static * (max_mant_bits + 1)
-    kernel = partial(_water_fill_kernel, n_bands=n_bands_static,
-                     max_mant_bits=float(max_mant_bits),
-                     ms_stop=float(ms_stop), lr_stop=float(lr_stop),
-                     max_iters=max_iters)
-    row = lambda w: pl.BlockSpec((rows, w), lambda i: (i, 0),  # noqa: E731
-                                 memory_space=pltpu.VMEM)
-    bits, left = pl.pallas_call(
-        kernel,
-        grid=(rp // rows,),
-        in_specs=[row(nb_pad), row(nb_pad),
-                  pl.BlockSpec((1, nb_pad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-                  row(1)],
-        out_specs=(row(nb_pad), row(1)),
-        out_shape=(jax.ShapeDtypeStruct((rp, nb_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((rp, 1), jnp.float32)),
-        interpret=interpret,
-    )(smr_p, lrms_p, nlines_p, total_p)
-    return (bits[:r, :nb].astype(jnp.int32),
-            left[:r, 0].astype(jnp.int32))
-
-
+                                   "interpret"))
 def water_fill(total_bits: jax.Array, max_mant_bits: int,
                n_lines: jax.Array, smr: jax.Array, lrms: jax.Array,
                ms_stop: float = -5.0, lr_stop: float = -15.0,
                interpret: bool = False):
-    """Pallas drop-in for pactpu.ops.bitalloc.water_fill (same contract)."""
-    nb = smr.shape[1]
-    return _water_fill_call(total_bits, smr, lrms,
-                            jnp.asarray(n_lines), int(max_mant_bits),
-                            float(ms_stop), float(lr_stop), int(nb),
-                            interpret)
+    """Kernel form of pactpu.ops.bitalloc.water_fill (same contract, f32
+    SMRs, at most 32 bands)."""
+    r, nb = smr.shape
+    assert nb <= _LANES, nb
+    tile = row_tile(r)
+    pad_r = (-r) % tile
+    rp = r + pad_r
 
+    def pad2(a, value=0.0):
+        return jnp.pad(a.astype(jnp.float32),
+                       ((0, pad_r), (0, _LANES - nb)),
+                       constant_values=value)
 
-@partial(jax.jit, static_argnames=("interpret",))
-def spread_maskers(mspl_k: jax.Array, lev_k: jax.Array, bark_k: jax.Array,
-                   valid: jax.Array, drop_db: jax.Array, zvec: jax.Array,
-                   interpret: bool = False) -> jax.Array:
-    """Masking-intensity accumulation for a batch of rows.
+    # padded lanes must not win the global stop-rule max -> -1e30
+    smr_p = pad2(smr, value=-1e30)
+    lrms_p = pad2(lrms)
+    nlines_p = jnp.pad(jnp.asarray(n_lines).astype(jnp.float32)[None, :],
+                       ((0, 0), (0, _LANES - nb)))
+    total_p = jnp.pad(jnp.asarray(total_bits).astype(jnp.float32)[:, None],
+                      ((0, pad_r), (0, 0)))
 
-    mspl_k/lev_k/bark_k/valid: f32[B, K] compacted masker slots
-    (pactpu.ops.psycho.masked_threshold builds them via exact top-k peak
-    compaction); drop_db: f32[B]; zvec: f32[L] MDCT-line barks.
-    Returns f32[B, L]: sum over maskers of 10^((spread SPL - 96)/10).
-    """
-    b, k = mspl_k.shape
-    l = zvec.shape[0]
-    assert k % _K_TILE == 0, k
-    pad = (-b) % _R_TILE
-    bp = b + pad
-    f32 = lambda a: jnp.pad(a.astype(jnp.float32), ((0, pad), (0, 0)))  # noqa: E731
-    zvec2 = jnp.broadcast_to(zvec.astype(jnp.float32)[None, :], (1, l))
-    drop2 = f32(drop_db.astype(jnp.float32).reshape(b, 1))
-
-    row = pl.BlockSpec((_R_TILE, k), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _spread_kernel,
-        grid=(bp // _R_TILE,),
-        in_specs=[row, row, row, row,
-                  pl.BlockSpec((_R_TILE, 1), lambda i: (i, 0),
-                               memory_space=pltpu.SMEM),
-                  pl.BlockSpec((1, l), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((_R_TILE, l), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((bp, l), jnp.float32),
+    kernel = partial(_water_fill_kernel, n_bands=nb,
+                     max_mant_bits=float(max_mant_bits),
+                     ms_stop=float(ms_stop), lr_stop=float(lr_stop),
+                     max_iters=nb * (max_mant_bits + 1))
+    row = lambda w: pl.BlockSpec((tile, w), lambda i: (i, 0))  # noqa: E731
+    bits, left = pl.pallas_call(
+        kernel,
+        grid=(rp // tile,),
+        in_specs=[row(_LANES), row(_LANES),
+                  pl.BlockSpec((1, _LANES), lambda i: (0, 0)), row(1)],
+        out_specs=(row(_LANES), row(1)),
+        out_shape=(jax.ShapeDtypeStruct((rp, _LANES), jnp.float32),
+                   jax.ShapeDtypeStruct((rp, 1), jnp.float32)),
+        compiler_params=pltriton.CompilerParams(num_warps=1, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(f32(mspl_k), f32(lev_k), f32(bark_k), f32(valid), drop2, zvec2)
-    return out[:b]
+        name="water_fill",
+    )(smr_p, lrms_p, nlines_p, total_p)
+    return (bits[:r, :nb].astype(jnp.int32),
+            left[:r, 0].astype(jnp.int32))

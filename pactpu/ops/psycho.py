@@ -1,4 +1,4 @@
-"""Batched TPU psychoacoustic model.
+"""Batched psychoacoustic model.
 
 Re-design of the reference masking model (reference codec/psychoac.py) for
 XLA: where the reference walks a variable-length peak list per block and
@@ -63,14 +63,9 @@ def _consts(n: int, fs: int, dtype_name: str = "float32"):
 
     Everything here depends only on (n, fs): threshold-in-quiet intensity at
     the MDCT line frequencies, bark of the MDCT lines, bark of the FFT
-    masker bins (on the reference's Py2 integer frequency grid, Q4), the
-    MLD weighting (reference codec/psychoac.py:44-64, 158-191, 349-372),
-    and `nonup`: the [bins, lines] masker-level-INDEPENDENT part of the
-    spreading function — plateau (|dz| <= 0.5 -> 1) plus the fixed
-    -27 dB/bark downward slope (10^(2.7 dz + 1.35) for dz < -0.5,
-    psychoac.py:103-120) — so those two regions of the masking sum reduce
-    to one MXU matmul `intensity @ nonup` and only the tonal-level-
-    dependent upward slope needs elementwise spreading work.
+    masker bins (on the reference's Py2 integer frequency grid, Q4), and
+    the MLD weighting (reference codec/psychoac.py:44-64, 158-191,
+    349-372).
     """
     half = n // 2
     line_freqs = (np.arange(half, dtype=np.float64) + 0.5) / half * (fs / 2.0)
@@ -79,14 +74,10 @@ def _consts(n: int, fs: int, dtype_name: str = "float32"):
     grid = float(int(fs) // n)                     # Q4 integer grid
     bin_bark = _bark_np(np.arange(half, dtype=np.float64) * grid)
     mld = _mld_np(line_freqs)
-    dz = zvec[None, :] - bin_bark[:, None]         # [bins, lines]
-    nonup = np.where(np.abs(dz) <= 0.5, 1.0,
-                     np.where(dz < -0.5, 10.0 ** (2.7 * dz + 1.35), 0.0))
     # cached as numpy: a device array materialized during one jit trace must
     # not leak into another (same reason as pactpu.ops.mdct._mdct_basis)
     cast = lambda a: np.asarray(a, np.dtype(dtype_name))  # noqa: E731
-    return (cast(quiet_i), cast(zvec), cast(bin_bark), cast(mld),
-            cast(nonup))
+    return cast(quiet_i), cast(zvec), cast(bin_bark), cast(mld)
 
 
 def masker_levels(x: jax.Array, fs: int):
@@ -199,8 +190,7 @@ def aidan_peaks(x: jax.Array, fs: int, mode: str = "weighted"):
 
 
 def masked_threshold(x: jax.Array, drop_db: jax.Array, fs: int,
-                     chunk: int = 16, consts=None,
-                     use_pallas=None, maskers=None,
+                     chunk: int = 16, consts=None, maskers=None,
                      up_coef: float = 0.367) -> jax.Array:
     """Masked thresholds (SPL dB at the MDCT line frequencies) for a batch.
 
@@ -221,7 +211,7 @@ def masked_threshold(x: jax.Array, drop_db: jax.Array, fs: int,
     n = x.shape[-1]
     half = n // 2
     c = consts if consts is not None else _consts(n, int(fs))
-    quiet_i, zvec, bin_bark, nonup = c[0], c[1], c[2], c[4]
+    quiet_i, zvec, bin_bark = c[0], c[1], c[2]
     zvec = jnp.asarray(zvec)
     bin_bark = jnp.asarray(bin_bark)
     if maskers is not None:
@@ -232,44 +222,11 @@ def masked_threshold(x: jax.Array, drop_db: jax.Array, fs: int,
         # strict local maxima are non-adjacent (<= (m-1)/2 of the interior)
         # and the first-half quirk halves that again; +1 covers the dummy
         k = m // 4 + 1
-        use_pallas = False
     else:
         mspl, peak = masker_levels(x, fs)
         bark_arr = None
         m = half
         k = half // 2
-
-    if use_pallas is None:
-        from pactpu.ops import pallas_ops
-        use_pallas = pallas_ops.enabled()
-    # the dense kernel bakes the master model's geometry: static bin barks
-    # and the 0.367 upslope coefficient
-    use_pallas = (use_pallas and x.dtype == jnp.float32
-                  and up_coef == 0.367)
-    if use_pallas:
-        # dense path: every bin is a masker slot gated by the peak mask —
-        # no top_k compaction, no gathers.  The masker-level-independent
-        # spreading regions (plateau + fixed downslope) are one MXU matmul
-        # against the static `nonup` geometry; only the tonal-level-
-        # dependent upslope runs as an elementwise Pallas kernel (with
-        # static triangular tile skipping — bark grids are compile-time)
-        from pactpu.ops import pallas_ops
-        # numpy grids for the kernel's static tile-skip decisions (and as
-        # small baked-in kernel constants) — always from the cache, the
-        # passed-in consts may be traced device values
-        cn = _consts(n, int(fs))
-        znp, bnp = cn[1], cn[2]
-        log2_10_over_10 = jnp.asarray(np.log2(10.0) / 10.0, x.dtype)
-        iprime = jnp.where(
-            peak, jnp.exp2(log2_10_over_10
-                           * (mspl - drop_db[:, None] - 96.0)), 0.0)
-        # HIGHEST: the bf16 MXU default would perturb masked thresholds
-        # across backends (CPU tests vs TPU serving); full f32 here costs
-        # ~0.1 ms per chunk and keeps SMRs backend-identical
-        total = jnp.matmul(iprime, jnp.asarray(nonup),
-                           precision=jax.lax.Precision.HIGHEST)
-        total = total + pallas_ops.spread_maskers_up(iprime, mspl, bnp, znp)
-        return spl(jnp.asarray(quiet_i)[None] + total)
 
     # compact peaks into K slots (indices of peak bins; empty slots -> -1)
     key = jnp.where(peak, jnp.arange(m, dtype=jnp.int32), -1)

@@ -1,4 +1,4 @@
-"""Uniform / floating-point / block-floating-point quantizers, TPU-native.
+"""Uniform / floating-point / block-floating-point quantizers (batched JAX).
 
 Semantics follow the reference quantizer family (reference
 codec/quantize.py): sign-magnitude *midtread* uniform quantization
@@ -11,7 +11,7 @@ uniformly quantized band maximum, capped at 2^nScaleBits - 1
 (quantize.py:148-177), and BFP mantissas/dequantization with the half-LSB
 reconstruction offset (quantize.py:249-376).
 
-TPU-first design decisions:
+Design decisions:
 
 - Everything is elementwise over arbitrary batch shapes; **bit widths are
   arrays**, so one fused call quantizes all 1024 MDCT lines of a block even

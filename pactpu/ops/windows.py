@@ -1,7 +1,7 @@
 """Analysis/synthesis windows as precomputed device constants.
 
 The reference defines sine, Hann and KBD windows that mutate their argument
-in place (reference codec/window.py:27-78).  On TPU a window application is
+in place (reference codec/window.py:27-78).  Here a window application is
 a broadcasted elementwise multiply of a `[B, N]` block batch with a cached
 `[N]` constant, which XLA fuses into the surrounding computation; nothing is
 mutated.

@@ -1,13 +1,13 @@
 """Multi-host distribution: jax.distributed entry + global-mesh encoding.
 
 The reference is one Python process iterating blocks serially
-(reference codec/pacfile.py:475-495).  The TPU framework scales the same
+(reference codec/pacfile.py:475-495).  This framework scales the same
 work across hosts the jax way (SURVEY.md §5 "Distributed communication
 backend"): every process calls `initialize()` (a `jax.distributed`
 wrapper), after which `jax.devices()` spans the whole cluster and ONE
 `shard_map` program encodes a file's block-stream over the global mesh —
-the 1024-sample framing halo crosses host boundaries as a `ppermute` over
-ICI/DCN and the Huffman-trainer histogram reduces with a global `psum`
+the 1024-sample framing halo crosses host boundaries as a `ppermute` and
+the Huffman-trainer histogram reduces with a global `psum`
 (pactpu.parallel.shard).
 
 Host-side responsibilities stay local: each process downloads only its
@@ -55,8 +55,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
     Arguments default to the PACTPU_COORDINATOR / PACTPU_NUM_PROCESSES /
     PACTPU_PROCESS_ID environment variables, and past those to
-    `jax.distributed.initialize`'s own auto-detection (TPU pods, Slurm,
-    Open MPI).  Returns True when a multi-process cluster was joined,
+    `jax.distributed.initialize`'s own auto-detection (Slurm, Open MPI).  Returns True when a multi-process cluster was joined,
     False for single-process operation (no coordinator configured) —
     every other API here works identically in both cases.
 

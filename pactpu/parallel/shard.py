@@ -1,4 +1,4 @@
-"""Block-stream sharding across a TPU device mesh.
+"""Block-stream sharding across a device mesh.
 
 The reference processes blocks serially in one Python process
 (reference codec/pacfile.py:475-495).  The only sequential couplings are
@@ -6,7 +6,7 @@ the 1024-sample MDCT framing overlap (pacfile.py:264-282) and the bit
 reservoir; everything else is independent per block.  So the natural
 multi-chip decomposition is **block-stream sharding**: each device owns a
 contiguous run of blocks, and the 50%-overlap framing needs exactly one
-1024-sample left halo from the neighbor — a single `ppermute` over ICI per
+1024-sample left halo from the neighbor — a single `ppermute` per
 step (the degenerate case of ring-attention-style neighbor exchange; see
 SURVEY.md §5).
 
@@ -60,9 +60,9 @@ def make_mesh(devices=None) -> Mesh:
 
 def _frames_with_halo(x_local: jax.Array, half: int, n_dev: int) -> jax.Array:
     """Shard-local 50%-overlap framing with the 1-block left-halo exchange:
-    each shard sends its last `half` samples to its right neighbor over
-    ICI/DCN (one ppermute); shard 0's halo is the leading zero priorBlock
-    (reference codec/pacfile.py:264-282).  [2, B_local*half] ->
+    each shard sends its last `half` samples to its right neighbor (one
+    ppermute); shard 0's halo is the leading zero priorBlock (reference
+    codec/pacfile.py:264-282).  [2, B_local*half] ->
     [B_local, 2, 2*half]."""
     halo = jax.lax.ppermute(
         x_local[:, -half:], BLOCK_AXIS,

@@ -137,7 +137,7 @@ class CodecConfig:
     # Mantissa-bit allocator: "water_fill" = the reference's greedy
     # NMR-residual loop (codec/bitalloc.py:129-184); "closed_form" = kai's
     # R = P/N + (SMR-avg)/6 allocator (baselines/kai/bitalloc.py:84-134) —
-    # the TPU-friendliest mode: one vectorized formula + a short take-back
+    # the loop-free mode: one vectorized formula + a short take-back
     # instead of ~2000 sequential grants.  The reference's legacy
     # experimental allocators are engine modes too: "uniform"
     # (BitAllocUniform, codec/bitalloc.py:22-57), "const_snr"

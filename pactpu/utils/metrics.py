@@ -159,7 +159,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str, enabled: bool = True) -> Iterator[None]:
-    """XLA/TPU profiler trace around a region (view with TensorBoard or
+    """JAX profiler trace around a region (view with TensorBoard or
     xprof); no-op when disabled so callers can gate on a flag."""
     if not enabled:
         yield

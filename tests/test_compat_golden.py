@@ -10,7 +10,7 @@ import pytest
 
 from pactpu.codec.wav import read_wav
 from pactpu.compat import refcodec as rc
-from tests.conftest import REFERENCE, requires_reference
+from conftest import REFERENCE, requires_reference
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,7 @@ from pactpu.codec.engine import Engine
 from pactpu.compat import refcodec as rc
 from pactpu.codec.wav import read_wav
 from pactpu.utils.config import CodecConfig
-from tests.conftest import REFERENCE, requires_reference
+from conftest import REFERENCE, requires_reference
 
 FILES = ["castanets.wav", "german.wav", "rock_test3.wav",
          "speech_test1.wav", "harmonic_test2.wav"]

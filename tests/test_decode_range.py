@@ -94,3 +94,34 @@ def test_range_no_native(stereo_case, monkeypatch):
     monkeypatch.setenv("PACTPU_NO_NATIVE", "1")
     _, part = Engine().decode_range(stream, 2000, 3000)
     np.testing.assert_array_equal(part, full[2000:5000])
+
+
+@pytest.mark.parametrize("parse", ["host", "device"])
+def test_range_runs_full_decode_chunk_shapes(monkeypatch, parse):
+    """Every frame of a window runs in a chunk program of the same shape
+    as in the full decode (zero blocks pad around it), so backends whose
+    matmul rounding depends on the row count still give identical
+    samples; windows straddle chunk boundaries and reach the tail."""
+    monkeypatch.setenv("PACTPU_DECODE_PARSE", parse)
+    pcm = _pcm(n=530 * 1024 + 77)           # 532 frames: chunks 512 + 32
+    eng = Engine(rate_mode="cbr")
+    stream = eng.encode(pcm)
+    shapes = []
+    real = Engine._decode_staging
+
+    def spy(self, data, layout=None):
+        out = real(self, data, layout)
+        shapes.append(list(out[4]))          # chunk sizes
+        return out
+
+    monkeypatch.setattr(Engine, "_decode_staging", spy)
+    _, full = eng.decode(stream)
+    full_shapes = shapes.pop()
+    assert full_shapes == [512, 32]
+    n = full.shape[0]
+    for s0, cnt in ((100 * 1024 + 5, 2000), (510 * 1024, 4 * 1024),
+                    (n - 3000, 3000)):
+        _, part = eng.decode_range(stream, s0, cnt)
+        np.testing.assert_array_equal(part, full[s0:s0 + cnt])
+        used = shapes.pop()
+        assert set(used) <= set(full_shapes), (s0, used)

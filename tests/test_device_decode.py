@@ -29,17 +29,68 @@ def _device_parse(monkeypatch):
     monkeypatch.setenv("PACTPU_DECODE_PARSE", "device")
 
 
-def _parse_both(data: bytes, cfg, huff=True, tables=None):
+HOST_PARSERS = ("native", "python")
+
+
+def _host_unpack(host: str, payload: bytes, cfg, huff=True, tables=None,
+                 n_channels=None):
+    """The host parser: native C++ (csrc/wakbits.cc) or its pure-Python
+    fallback (pactpu.native._unpack_file_py)."""
+    args = (payload, np.asarray(cfg.band_layout.n_lines, np.int32),
+            cfg.n_scale_bits, cfg.n_mant_size_bits,
+            cfg.n_table_id_bits if huff else 0, huff,
+            cfg.n_channels if n_channels is None else n_channels, tables)
+    if host == "python":
+        return native._unpack_file_py(*args)
+    if not native.available():
+        pytest.skip("native lib unavailable")
+    return native.unpack_file(*args[:5], read_lrms=huff,
+                              n_channels=args[6], tables=tables)
+
+
+def _parse_both(data: bytes, cfg, huff=True, tables=None, host="native"):
     _, _, off = rc.read_header(data)
-    n_lines = np.asarray(cfg.band_layout.n_lines, np.int32)
-    parsed = native.unpack_file(
-        data[off:], n_lines, cfg.n_scale_bits, cfg.n_mant_size_bits,
-        cfg.n_table_id_bits if huff else 0, read_lrms=huff,
-        n_channels=cfg.n_channels, tables=tables)
+    parsed = _host_unpack(host, data[off:], cfg, huff, tables)
     words, nbits = hd.frame_rows(data[off:])
     out = hd.parse_rows_fn(cfg, huff)(
         words, nbits, hd.device_lut(tables) if huff else None)
     return parsed, {k: np.asarray(v) for k, v in out.items()}
+
+
+def _frame(data: bytes):
+    cfg, _, off = rc.read_header(data)
+    return cfg, hd.frame_rows(data[off:])
+
+
+def _assert_rows_match_host(cfg, words, nbits, host, tables=None):
+    """Row by row, the XLA walk flags exactly the rows the host parser
+    rejects, and decodes every other non-empty row to the host's fields;
+    empty rows (nbits == 0) are padding: never bad, all zero."""
+    out = {k: np.asarray(v) for k, v in hd.parse_rows_fn(cfg, True)(
+        words, nbits, hd.device_lut(tables)).items()}
+    checked = 0
+    for r in range(words.shape[0]):
+        if nbits[r] == 0:
+            assert not out["bad"][r]
+            assert not out["mant"][r].any() and not out["ba"][r].any()
+            continue
+        nbytes = int(nbits[r]) // 8
+        row = words[r].astype(">u4").tobytes()[:nbytes]
+        payload = nbytes.to_bytes(4, "little") + row
+        try:
+            host_row = _host_unpack(host, payload, cfg, True, tables,
+                                    n_channels=1)
+        except ValueError:
+            assert out["bad"][r], f"row {r}: host rejects, walk does not"
+            continue
+        assert not out["bad"][r], f"row {r}: walk rejects, host does not"
+        for k, nk in (("overall", "overall"), ("tid", "table_id"),
+                      ("ba", "ba"), ("sf", "sf"), ("mant", "mant")):
+            np.testing.assert_array_equal(out[k][r], host_row[nk][0],
+                                          err_msg=f"{k} row {r}")
+        np.testing.assert_array_equal(out["lrms"][r], host_row["lrms"][0])
+        checked += 1
+    return out, checked
 
 
 def _assert_parse_equal(parsed, out, c):
@@ -54,11 +105,114 @@ def _assert_parse_equal(parsed, out, c):
         out["lrms"].reshape(b, c, -1)[:, -1], parsed["lrms"])
 
 
-def test_parser_matches_native_synthetic():
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_native_synthetic(host):
     cfg = CodecConfig()
     stream = rc.encode_file(_tone_pcm(), 44100, cfg)
-    parsed, out = _parse_both(stream, cfg)
+    parsed, out = _parse_both(stream, cfg, host=host)
     _assert_parse_equal(parsed, out, 2)
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_high_rate(host):
+    """4.93 bps streams exercise long codes and escapes much harder."""
+    cfg = CodecConfig(target_bits_per_sample=4.93)
+    stream = rc.encode_file(_tone_pcm(seed=11), 44100, cfg)
+    parsed, out = _parse_both(stream, cfg, host=host)
+    _assert_parse_equal(parsed, out, 2)
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_corrupt_rows(host):
+    """Word-flipped rows: the walk flags exactly the rows the host parser
+    rejects and agrees with it on every row that still parses."""
+    cfg = CodecConfig()
+    stream = rc.encode_file(_tone_pcm(seed=7), 44100, cfg)
+    cfg2, (words, nbits) = _frame(stream)
+    words = words.copy()
+    rng = np.random.default_rng(0)
+    for r in range(0, words.shape[0], 3):
+        w = rng.integers(0, max(1, nbits[r] // 32))
+        words[r, w] ^= np.uint32(rng.integers(1, 1 << 32))
+    out, _ = _assert_rows_match_host(cfg2, words, nbits, host)
+    assert out["bad"].any(), "no flip desynchronized a row"
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_zero_and_short_rows(host):
+    """An empty row is padding (not bad); a row cut to 16 bits is bad."""
+    cfg = CodecConfig()
+    stream = rc.encode_file(_tone_pcm(seed=5), 44100, cfg)
+    cfg2, (words, nbits) = _frame(stream)
+    words, nbits = words.copy(), nbits.copy()
+    nbits[0] = 0
+    words[0] = 0
+    nbits[2] = 16                            # truncated row -> bad
+    out, checked = _assert_rows_match_host(cfg2, words, nbits, host)
+    assert out["bad"][2] and not out["bad"][0] and checked > 0
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_bad_table_id(host):
+    """Table ids 15 and 0 (outside 1..10) are bad on both parsers."""
+    cfg = CodecConfig()
+    stream = rc.encode_file(_tone_pcm(seed=9), 44100, cfg)
+    cfg2, (words, nbits) = _frame(stream)
+    words = words.copy()
+    # tid is the 4 bits after the 4-bit overall scale: force 15 and 0
+    words[0] = (words[0] & ~np.uint32(0x0F000000)) | np.uint32(0x0F000000)
+    words[1] = words[1] & ~np.uint32(0x0F000000)
+    out, _ = _assert_rows_match_host(cfg2, words, nbits, host)
+    assert out["bad"][0] and out["bad"][1]
+
+
+def _custom_tables():
+    from pactpu.ops import huffman_train as ht
+    rng = np.random.default_rng(0)
+    hists = {}
+    for t in range(1, 11):
+        h = np.zeros(1 << 15, np.int64)
+        h[:256] = rng.integers(0, 2000, 256)
+        hists[t] = h
+    return ht.train_tables(hists)
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_custom_tables(host):
+    tables = _custom_tables()
+    stream = Engine(tables=tables).encode(_tone_pcm(seed=13))
+    cfg, _, _ = rc.read_header(stream)
+    parsed, out = _parse_both(stream, cfg, tables=tables, host=host)
+    _assert_parse_equal(parsed, out, 2)
+
+
+@pytest.mark.parametrize("host", HOST_PARSERS)
+def test_parser_matches_host_custom_band_layout(host):
+    cfg = CodecConfig(band_line_counts=(100, 200, 300, 424))
+    stream = rc.encode_file(_tone_pcm(seed=15), 44100, cfg)
+    cfg2, _, _ = rc.read_header(stream)
+    parsed, out = _parse_both(stream, cfg2, host=host)
+    _assert_parse_equal(parsed, out, 2)
+
+
+def test_device_parse_word_cap(monkeypatch):
+    """Rows wider than the largest upload bucket: a forced device parse
+    refuses the stream, and auto without the native library falls back
+    to the host parser with the same samples."""
+    from pactpu.codec import engine as E
+    pcm = _tone_pcm()
+    eng = Engine()
+    stream = eng.encode(pcm)
+    monkeypatch.setenv("PACTPU_DECODE_PARSE", "host")
+    _, gold = eng.decode(stream)
+    monkeypatch.setattr(E, "_PAYLOAD_WORD_BUCKETS", (8,))
+    monkeypatch.setenv("PACTPU_DECODE_PARSE", "device")
+    with pytest.raises(ValueError, match="does not fit the device parser"):
+        eng.decode(stream)
+    monkeypatch.setenv("PACTPU_DECODE_PARSE", "auto")
+    monkeypatch.setenv("PACTPU_NO_NATIVE", "1")
+    _, out = eng.decode(stream)
+    np.testing.assert_array_equal(out, gold)
 
 
 @requires_reference

@@ -1,4 +1,4 @@
-"""End-to-end TPU engine vs the byte-exact reference oracle.
+"""End-to-end engine vs the byte-exact reference oracle.
 
 Parity bar (BASELINE.json): SNR of the engine's decoded output must match
 the reference pipeline at equal bit budget; streams must interoperate both
@@ -11,7 +11,7 @@ import pytest
 from pactpu.codec.engine import Engine
 from pactpu.codec.wav import read_wav, pcm16_to_float_np
 from pactpu.compat import refcodec as rc
-from tests.conftest import REFERENCE, requires_reference
+from conftest import REFERENCE, requires_reference
 
 
 def _snr(ref_pcm: np.ndarray, test_pcm: np.ndarray) -> float:

@@ -3,7 +3,7 @@
 The strongest engine-level validation in the suite: with precision="f64"
 the ENGINE (batched analysis + device cost tables + lax.scan trajectory,
 pactpu.codec.exact) must byte-reproduce the reference golden bitstream —
-not just the float64 oracle (tests/test_compat_golden.py), the TPU-shaped
+not just the float64 oracle (tests/test_compat_golden.py), the batched device
 program itself.  Reference semantics: codec/Huffman.py:353-371 (reservoir),
 codec/codec.py:229,258-260 (withdraw + leftover chaining).
 """
@@ -16,7 +16,7 @@ from pactpu.codec.engine import Engine
 from pactpu.codec.stream import StreamingEncoder
 from pactpu.codec.wav import read_wav
 from pactpu.compat import refcodec as rc
-from tests.conftest import REFERENCE, requires_reference
+from conftest import REFERENCE, requires_reference
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,8 @@
-"""Pallas spreading kernel vs the XLA masked-threshold path.
+"""The water-fill Pallas kernel and the plain-JAX bit-field extraction.
 
-Runs the kernel in interpreter mode (CPU backend); on TPU the compiled
-kernel computes the same expression, differing only in float summation
-order.
+The kernel runs here in interpret mode (CPU backend); on the GPU the same
+kernel compiles through Triton and is checked against the XLA loop by
+chip_smoke.py and the `gpu`-marked test below.
 """
 
 import jax
@@ -10,114 +10,123 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pactpu.ops import psycho
-from pactpu.ops.pallas_ops import spread_maskers
-from pactpu.ops.windows import sine_window
+from pactpu.ops import bitalloc as ba_ops
+from pactpu.ops import bitpack
+from pactpu.ops import pallas_ops as po
+from pactpu.utils.config import CodecConfig
 
 
-@pytest.fixture(scope="module")
-def blocks() -> np.ndarray:
-    rng = np.random.default_rng(11)
-    n = 2048
-    t = np.arange(n)
-    x = np.stack([
-        0.4 * np.sin(2 * np.pi * 441 * t / 44100.0)
-        + 0.2 * np.sin(2 * np.pi * 3000 * t / 44100.0),
-        rng.normal(0, 0.05, n),
-        0.6 * np.sin(2 * np.pi * 880 * t / 44100.0)
-        + rng.normal(0, 0.01, n),
-        np.zeros(n),
-    ]).astype(np.float32)
-    return x * sine_window(n).astype(np.float32)
+def _alloc_case(rows: int, seed: int = 5):
+    rng = np.random.default_rng(seed)
+    smr = jnp.asarray(rng.uniform(-20, 60, (rows, 25)), jnp.float32)
+    lrms = jnp.asarray(rng.random((rows, 25)) < 0.4)
+    totals = jnp.asarray(rng.integers(0, 3000, rows).astype(np.int32))
+    n_lines = np.asarray(CodecConfig().band_layout.n_lines, np.int32)
+    return totals, n_lines, smr, lrms
 
 
-def test_spread_kernel_matches_xla_path(blocks):
-    fs = 44100
-    drop = jnp.asarray([15.0, 15.0, 0.0, 15.0], jnp.float32)
-    gold = psycho.masked_threshold(jnp.asarray(blocks), drop, fs,
-                                   use_pallas=False)
-
-    # rebuild the kernel inputs exactly as masked_threshold does
-    n = blocks.shape[-1]
-    half = n // 2
-    quiet_i, zvec, bin_bark = psycho._consts(n, fs)[:3]
-    mspl, peak = psycho.masker_levels(jnp.asarray(blocks), fs)
-    import jax
-    key = jnp.where(peak, jnp.arange(half, dtype=jnp.int32), -1)
-    idx, _ = jax.lax.top_k(key, half // 2)
-    valid = idx >= 0
-    safe = jnp.maximum(idx, 0)
-    mspl_k = jnp.take_along_axis(mspl, safe, axis=-1)
-    lev_k = 0.367 * jnp.maximum(mspl_k - 40.0, 0.0)
-    bark_k = jnp.asarray(bin_bark)[safe]
-
-    total = spread_maskers(mspl_k, lev_k, bark_k,
-                           valid.astype(jnp.float32), drop,
-                           jnp.asarray(zvec), interpret=True)
-    out = psycho.spl(jnp.asarray(quiet_i)[None] + total)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(gold),
-                               rtol=1e-5, atol=1e-4)
-
-
-def test_water_fill_kernel_matches_xla():
-    """Pallas water-fill (interpret mode) is bit-identical to the XLA
-    fori_loop formulation — integer state, so exact equality."""
-    import jax
-    from pactpu.ops import bitalloc as ba_ops
-    from pactpu.ops import pallas_ops as po
-    from pactpu.utils.config import CodecConfig
-
-    cfg = CodecConfig()
-    n_lines = np.asarray(cfg.band_layout.n_lines, np.int32)
-    rng = np.random.default_rng(5)
-    r = 13  # deliberately not a multiple of the row tile
-    smr = jnp.asarray(rng.uniform(-20, 60, (r, 25)), jnp.float32)
-    lrms = jnp.asarray(rng.random((r, 25)) < 0.4)
-    totals = jnp.asarray(
-        rng.integers(0, 3000, r).astype(np.int32))
-
-    gold_bits, gold_left = ba_ops.water_fill(
-        totals, 16, n_lines, smr, lrms, use_pallas=False)
+@pytest.mark.parametrize("rows", [1, 13, 301, 1030])
+def test_water_fill_kernel_matches_xla(rows):
+    """Pallas water-fill (interpret mode) is bit-identical to the XLA loop
+    — integer state, so exact equality — including row counts that are
+    not a multiple of the row tile."""
+    totals, n_lines, smr, lrms = _alloc_case(rows)
+    gold_bits, gold_left = ba_ops.water_fill_xla(totals, 16, n_lines, smr,
+                                                 lrms)
     bits, left = po.water_fill(totals, 16, n_lines, smr, lrms,
                                interpret=True)
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(gold_bits))
     np.testing.assert_array_equal(np.asarray(left), np.asarray(gold_left))
 
 
-def test_pack_words_kernel_matches_scatter():
-    """Pallas pack_words (interpret mode) is bit-identical to the XLA
-    scatter-add words assembly inside pack_payload_bits."""
-    import jax
-    from pactpu.ops import pallas_ops as po
+def test_water_fill_row_tile():
+    """Row tiles are powers of two that keep >= 132 programs in flight
+    where the batch allows it, capped at 16 rows."""
+    for rows in (1, 131, 264, 512, 1024, 2048, 100_000):
+        tile = po.row_tile(rows)
+        assert tile & (tile - 1) == 0 and 1 <= tile <= 16
+        if tile > 1:
+            assert -(-rows // tile) >= 132
+        if tile < 16:
+            assert -(-rows // (2 * tile)) < 132
+    assert po.row_tile(512) == 2
 
-    rng = np.random.default_rng(7)
-    r, m, n_words = 5, 300, 16
-    # random disjoint-ish contributions; exactness only needs identical
-    # adds, not a valid bitstream
-    part0 = jnp.asarray(rng.integers(0, 2**32, (r, m), dtype=np.uint64)
-                        .astype(np.uint32))
-    part1 = jnp.asarray(rng.integers(0, 2**32, (r, m), dtype=np.uint64)
-                        .astype(np.uint32))
-    w0 = jnp.asarray(np.sort(rng.integers(0, n_words, (r, m)))
-                     .astype(np.int32))
 
-    gold = jnp.zeros((r, n_words), jnp.uint32)
-    rows = jnp.broadcast_to(jnp.arange(r)[:, None], w0.shape)
-    gold = gold.at[rows, w0].add(part0, mode="drop")
-    gold = gold.at[rows, w0 + 1].add(part1, mode="drop")
+@pytest.mark.parametrize("backend,dtype,kernel", [
+    ("gpu", jnp.float32, True),
+    ("gpu", jnp.float64, False),
+    ("cpu", jnp.float32, False),
+])
+def test_water_fill_kernel_choice(monkeypatch, backend, dtype, kernel):
+    """bitalloc.water_fill picks the kernel from the backend (GPU) and the
+    SMR dtype (f32), never from a flag."""
+    calls = []
 
-    out = po.pack_words(part0, part1, w0, n_words, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(gold))
+    def fake(*args, **kwargs):
+        calls.append(args)
+        return "kernel"
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(po, "water_fill", fake)
+    totals, n_lines, smr, lrms = _alloc_case(4)
+    with jax.enable_x64(dtype == jnp.float64):
+        out = ba_ops.water_fill(totals, 16, n_lines, smr.astype(dtype), lrms)
+    assert (out == "kernel") == kernel
+    assert bool(calls) == kernel
+
+
+@pytest.mark.gpu
+def test_water_fill_kernel_on_gpu(gpu):
+    """The compiled Triton kernel equals the XLA loop at a chunk's rows."""
+    totals, n_lines, smr, lrms = _alloc_case(512)
+    bits, left = po.water_fill(totals, 16, n_lines, smr, lrms)
+    gold_bits, gold_left = ba_ops.water_fill_xla(totals, 16, n_lines, smr,
+                                                 lrms)
+    np.testing.assert_array_equal(np.asarray(bits), np.asarray(gold_bits))
+    np.testing.assert_array_equal(np.asarray(left), np.asarray(gold_left))
+
+
+def _read_field(words: np.ndarray, off: int, width: int) -> int:
+    """MSB-first bit read of one field (the plain host reference)."""
+    val = 0
+    for k in range(width):
+        pos = off + k
+        bit = (int(words[pos >> 5]) >> (31 - (pos & 31))) & 1
+        val = (val << 1) | bit
+    return val
+
+
+@pytest.mark.parametrize("case", ["zero_width", "straddle", "w16_at_31"])
+def test_extract_codes_edge_cases(case):
+    """Width 0 reads 0; fields that cross a word boundary join both
+    words; a 16-bit field at bit offset 31 takes 1 bit from its first
+    word and 15 from the next."""
+    rng = np.random.default_rng(1)
+    words = rng.integers(0, 2 ** 32, (2, 4), dtype=np.uint64).astype(
+        np.uint32)
+    if case == "zero_width":
+        off = np.array([[0, 17, 64, 127], [5, 96, 128, 31]], np.int32)
+        width = np.zeros((2, 4), np.int32)
+    elif case == "straddle":
+        off = np.array([[28, 60, 90, 1], [31, 63, 94, 20]], np.int32)
+        width = np.array([[8, 9, 16, 3], [2, 5, 4, 12]], np.int32)
+    else:
+        off = np.array([[31, 63, 95, 31], [31, 63, 95, 0]], np.int32)
+        width = np.array([[16, 16, 16, 1], [16, 16, 16, 16]], np.int32)
+    got = np.asarray(bitpack.extract_codes(
+        jnp.asarray(words), jnp.asarray(off), jnp.asarray(width)))
+    padded = np.concatenate([words, np.zeros((2, 1), np.uint32)], axis=1)
+    want = np.array([[_read_field(padded[r], int(off[r, j]),
+                                  int(width[r, j])) for j in range(4)]
+                     for r in range(2)], np.int32)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_repack_extract_codes_roundtrip():
-    """native.repack_codes -> extract_codes (interpret) reproduces the
-    mantissa codes exactly (untransmitted lines -> 0), including fields
-    spanning word-tile boundaries (the kernel grids over 32-word tiles
-    and accumulates the pre-shift window across them)."""
+    """native.repack_codes -> extract_codes reproduces the mantissa codes
+    exactly (untransmitted lines -> 0), including fields that span word
+    boundaries."""
     from pactpu import native
-    from pactpu.ops import pallas_ops as po
-    from pactpu.utils.config import CodecConfig
 
     if not native.available():
         pytest.skip("native lib unavailable")
@@ -137,17 +146,16 @@ def test_repack_extract_codes_roundtrip():
     n_words = 512
     words = native.repack_codes(mant, ba, n_lines, n_words)
     ends = np.cumsum(width, axis=1)
-    out = po.extract_codes(jnp.asarray(words),
-                           jnp.asarray((ends - width).astype(np.int32)),
-                           jnp.asarray(width.astype(np.int32)),
-                           interpret=True)
+    out = bitpack.extract_codes(jnp.asarray(words),
+                                jnp.asarray((ends - width).astype(np.int32)),
+                                jnp.asarray(width.astype(np.int32)))
     np.testing.assert_array_equal(np.asarray(out), mant)
 
 
 def test_engine_packed_decode_matches(monkeypatch):
     """The dense-word upload decode path (PACTPU_DECODE_UPLOAD=dense,
     repack_codes + extract_codes) produces the identical PCM as the
-    u16-per-line path the CPU backend defaults to."""
+    default u16-per-line path."""
     from pactpu import native
     from pactpu.codec.engine import Engine
 
@@ -175,7 +183,6 @@ def test_packed_decode_dense_overflow_fallback(monkeypatch):
 
     from pactpu import native
     from pactpu.codec.engine import Engine
-    from pactpu.utils.config import CodecConfig
 
     if not native.available():
         pytest.skip("native lib unavailable")
@@ -185,26 +192,8 @@ def test_packed_decode_dense_overflow_fallback(monkeypatch):
                   32767).astype(np.int16)
     eng = Engine(cfg=cfg, rate_mode="cbr")
     stream = eng.encode(pcm)
-    fs, gold = eng.decode(stream)               # u16 path (CPU default)
+    fs, gold = eng.decode(stream)               # u16 path (the default)
 
     monkeypatch.setenv("PACTPU_DECODE_UPLOAD", "dense")
     fs2, out = Engine(cfg=cfg, rate_mode="cbr").decode(stream)
     np.testing.assert_array_equal(out, gold)
-
-
-def test_masked_threshold_pallas_flag(blocks, monkeypatch):
-    """use_pallas=True routes through the nonup matmul + upslope kernel
-    (interpret on CPU) and matches the compacted XLA path."""
-    fs = 44100
-    drop = jnp.asarray([15.0, 0.0, 15.0, 15.0], jnp.float32)
-    gold = psycho.masked_threshold(jnp.asarray(blocks), drop, fs,
-                                   use_pallas=False)
-    import pactpu.ops.pallas_ops as po
-    real = po.spread_maskers_up
-    monkeypatch.setattr(
-        po, "spread_maskers_up",
-        lambda *a, **k: real(*a, interpret=True, **k))
-    out = psycho.masked_threshold(jnp.asarray(blocks), drop, fs,
-                                  use_pallas=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(gold),
-                               rtol=1e-4, atol=1e-4)

@@ -1,4 +1,4 @@
-"""TPU quantizer kernels vs the exact float64 oracle.
+"""Device quantizer kernels vs the exact float64 oracle.
 
 Covers the reference quantizer chart fixture (codec/quantize.py:37) and
 randomized sweeps over all mantissa widths used by the codec.

@@ -21,7 +21,7 @@ from pactpu.ops import bitalloc as ba_ops
 from pactpu.ops import huffman as huff_ops
 from pactpu.ops import psycho
 from pactpu.utils.config import CodecConfig
-from tests.conftest import REFERENCE, requires_reference
+from conftest import REFERENCE, requires_reference
 
 CFG = CodecConfig()
 HALF = CFG.n_mdct_lines
@@ -82,14 +82,14 @@ def test_water_fill_matches_oracle_exactly(seed):
 
 
 def test_water_fill_xla_fallback_matches_oracle():
-    """The non-Pallas (pure XLA fori_loop) formulation has the same exact
-    semantics (it is what CPU tests and the sharded path may run)."""
+    """The plain XLA loop (water_fill_xla, the path on every backend but
+    the GPU and for f64) has the same exact semantics."""
     smr, lrms, total = _random_alloc_cases(7, rows=16)
     max_mant = 16
     n_lines = np.asarray(LAYOUT.n_lines, np.int64)
-    bits_dev, left_dev = ba_ops.water_fill(
+    bits_dev, left_dev = ba_ops.water_fill_xla(
         jnp.asarray(total), max_mant, jnp.asarray(n_lines, jnp.int32),
-        jnp.asarray(smr), jnp.asarray(lrms), use_pallas=False)
+        jnp.asarray(smr), jnp.asarray(lrms))
     for r in range(smr.shape[0]):
         bits_ref, diff_ref = rc.bit_alloc(
             float(total[r]), 0, max_mant, LAYOUT.n_bands, n_lines,

@@ -527,3 +527,70 @@ def test_legacy_alloc_cli_flag(tone_pcm, tmp_path):
     rc = cli.main(["encode", str(p), str(tmp_path / "t.wak"),
                    "--rate", "cbr", "--alloc-mode", "const_mnr"])
     assert rc == 0 and (tmp_path / "t.wak").exists()
+
+
+def _dot_precisions(jaxpr) -> list:
+    """Precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    found.extend(_dot_precisions(inner))
+    return found
+
+
+def test_closed_form_matmul_pinned_highest():
+    """`smr @ nLines` in the closed-form allocator is pinned to HIGHEST:
+    a TF32 product on the GPU could move floor boundaries."""
+    import jax
+    smr = jnp.zeros((4, LAYOUT.n_bands), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda s: ba_ops.closed_form_init(
+        jnp.full(4, 3000, jnp.int32), 16,
+        jnp.asarray(LAYOUT.n_lines_array), s))(smr)
+    precs = _dot_precisions(jaxpr.jaxpr)
+    assert precs and all(p == (jax.lax.Precision.HIGHEST,) * 2
+                         for p in precs), precs
+
+
+def test_closed_form_unchanged_on_grid():
+    """On dyadic-grid SMRs the pinned product is exact, so the raw
+    allocation R equals the float64 formula and the allocation equals
+    kai's restatement on every row."""
+    rng = np.random.default_rng(4)
+    smr = _grid_smr(rng, 16)
+    budget = rng.integers(500, 4000, 16).astype(np.int32)
+    nl = LAYOUT.n_lines_array.astype(np.float64)
+    _, r_dev = ba_ops.closed_form_init(
+        jnp.asarray(budget), 16, jnp.asarray(LAYOUT.n_lines_array),
+        jnp.asarray(smr))
+    avg = (smr.astype(np.float64) @ nl) / nl.sum()
+    r_ref = budget[:, None] / nl.sum() + (smr - avg[:, None]) / 6.0
+    np.testing.assert_allclose(np.asarray(r_dev), r_ref, rtol=0, atol=1e-5)
+    bits = np.asarray(ba_ops.alloc_closed_form(
+        jnp.asarray(budget), 16, jnp.asarray(LAYOUT.n_lines_array),
+        jnp.asarray(smr)))
+    near = (np.abs(r_ref - np.round(r_ref)) < 1e-4).any(axis=1)
+    for row in np.nonzero(~near)[0]:
+        np.testing.assert_array_equal(
+            bits[row], kai_bit_alloc(int(budget[row]), 16,
+                                     LAYOUT.n_lines_array, smr[row]))
+
+
+def test_exact_cost_einsum_pinned_highest():
+    """The exact mode's band-cost contraction states HIGHEST too (exact in
+    any precision, since lengths are small integers)."""
+    import jax
+    from pactpu.codec import exact
+    from pactpu.codec.engine import engine_consts_np
+    body = exact.cost_table_body(CFG)
+    mixed = jnp.zeros((2, 2, CFG.n_mdct_lines), jnp.float32)
+    tabs = engine_consts_np(CFG)["tabs"]
+    jaxpr = jax.make_jaxpr(lambda m: body({"mixed": m},
+                                          {"tabs": tabs}))(mixed)
+    precs = _dot_precisions(jaxpr.jaxpr)
+    assert precs and all(p == (jax.lax.Precision.HIGHEST,) * 2
+                         for p in precs), precs

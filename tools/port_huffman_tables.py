@@ -5,7 +5,7 @@ cPickle of ``{tableID: HuffmanTable}`` where each table maps unsigned BFP
 mantissa codes (plus the escape symbol -1) to '0'/'1' code strings
 (reference codec/Huffman.py:138-153, codec/huffmanTables.pickle).
 
-The TPU engine wants dense arrays, not dicts:
+The device engine wants dense arrays, not dicts:
 
 - ``lengths[table, symbol]``  uint8 code length (0 = symbol not in table)
 - ``codes[table, symbol]``    uint32 codeword, MSB-first in the low bits

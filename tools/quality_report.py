@@ -3,7 +3,7 @@
 For every reference input WAV this measures, at the same
 targetBitsPerSample operating point:
 
-  - engine roundtrip SNR (TPU engine encode -> decode vs original PCM)
+  - engine roundtrip SNR (engine encode -> decode vs original PCM)
   - oracle roundtrip SNR (pactpu.compat.refcodec, the bit-exact float64
     re-statement of the reference pipeline, vs original PCM)
   - agreement SNR between the two decodes
@@ -247,7 +247,7 @@ def main() -> int:
                 "trajectory never compounds (see the `extras RMS` column) "
                 "and it reaches the same SNR with up to ~25% fewer bytes.  "
                 "The `exact bytes` column is `Engine(rate_mode=\"exact\")` "
-                "— the reference's exact sequential trajectory on the TPU "
+                "— the reference's exact sequential trajectory on the device "
                 "path — which tracks the oracle's size to <0.1%, confirming "
                 "the size gap is entirely the (documented) rate-control "
                 "policy difference, not a coding deficiency.\n")
